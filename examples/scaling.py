@@ -5,7 +5,7 @@ Equivalent of the reference's cluster experiment scripts
 npx=npy in {2,4,8,16} x nxg=nyg in {256,512,1024,2048}, nzg=128).
 
 On a single host this runs over a virtual CPU mesh (set
-``--simulate N``); on a real slice it uses the attached devices.  Reports
+``--simulate N``); on a GPU host it uses the attached cards.  Reports
 per-F-cycle time and scaling efficiency vs the smallest mesh.
 
     python examples/scaling.py --grids 256,512 --meshes 1x1,2x2,4x2 --nz 64
@@ -25,9 +25,9 @@ import jax
 
 def run_one(nxg, nyg, nz, npx, npy, dtype, comm="auto"):
     import jax.numpy as jnp
-    from mgroms_tpu import NHModel, SolverConfig
-    from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
-    from mgroms_tpu.solver import cycle_step
+    from mgroms_jax import NHModel, SolverConfig
+    from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
+    from mgroms_jax.solver import cycle_step
 
     cfg = SolverConfig(dtype=dtype, coarsest="direct")
     m = NHModel(nxg, nyg, nz, cfg=cfg)
@@ -79,8 +79,9 @@ def main():
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + f" --xla_force_host_platform_device_count={args.simulate}")
         jax.config.update("jax_platforms", "cpu")
+    from mgroms_jax.platform import default_dtype, is_host
     platform = jax.devices()[0].platform
-    dtype = args.dtype or ("float64" if platform == "cpu" else "float32")
+    dtype = args.dtype or default_dtype(platform)
     if dtype == "float64":
         jax.config.update("jax_enable_x64", True)
 
@@ -92,9 +93,7 @@ def main():
     # work, same silicon), so the meaningful column is the overhead factor
     # t_mesh / t_base (communication + partitioning cost; 1.00 = free).
     # On real hardware the classic parallel efficiency applies.
-    virtual = (platform == "cpu" and args.simulate) or \
-        len({getattr(d, "process_index", 0) for d in jax.devices()}) == 1 \
-        and platform == "cpu"
+    virtual = is_host(platform)
     effcol = "ovh" if virtual else "eff"
     print(f"platform={platform} dtype={dtype} nz={args.nz} comm={args.comm}"
           f"{' (virtual mesh: ovh = t/t_base, ideal 1.00)' if virtual else ''}")

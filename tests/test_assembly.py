@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mgroms_tpu.assembly import build_operators
-from mgroms_tpu.bc import extend_h1
-from mgroms_tpu.cases.seamount import setup_seamount
-from mgroms_tpu.config import SolverConfig
-from mgroms_tpu.levels import build_level_plan
-from mgroms_tpu.ops.stencil import apply_op
+from mgroms_jax.assembly import build_operators
+from mgroms_jax.bc import extend_h1
+from mgroms_jax.cases.seamount import setup_seamount
+from mgroms_jax.config import SolverConfig
+from mgroms_jax.levels import build_level_plan
+from mgroms_jax.ops.stencil import apply_op
 
 
 def _build(nx=8, ny=8, nz=8, cfg=None):
@@ -71,9 +71,9 @@ def test_constant_nullspace_below_surface():
 def test_vertical_band_is_conductance():
     """cA2(k) == cw(k) for interior k without bmask
     (mg_define_matrix.f90:495, :569)."""
-    from mgroms_tpu.assembly import slope_terms
-    from mgroms_tpu.bc import extend_h2
-    from mgroms_tpu.grids import setup_zr_zw_croco
+    from mgroms_jax.assembly import slope_terms
+    from mgroms_jax.bc import extend_h2
+    from mgroms_jax.grids import setup_zr_zw_croco
 
     case = setup_seamount(8, 8, 8)
     cfg = SolverConfig()
@@ -94,7 +94,7 @@ def test_vertical_band_is_conductance():
 def test_seamount_zr_zw_values():
     """theta = 0, zeta = 0 new_s_coord: analytic reduction
     z = (hc*sc - sc^2*h) * h / (h + hc)."""
-    from mgroms_tpu.grids import setup_zr_zw_croco
+    from mgroms_jax.grids import setup_zr_zw_croco
     h = jnp.full((3, 3), 4000.0)
     nz = 4
     zr, zw = setup_zr_zw_croco(4000.0, 0.0, 0.0, jnp.zeros((3, 3)), h, nz)
@@ -108,7 +108,7 @@ def test_seamount_zr_zw_values():
 
 
 def test_namelist_roundtrip(tmp_path):
-    from mgroms_tpu.config import read_namelist
+    from mgroms_jax.config import read_namelist
     f = tmp_path / "nh_namelist"
     f.write_text("""&nhparam
   solver_prec    = 1.d-12,

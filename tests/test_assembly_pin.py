@@ -364,7 +364,7 @@ def _grids(nz, ny, nx, seed=0):
 
 @pytest.mark.parametrize("use_bmask", [False, True])
 def test_assemble_bands_matches_fortran_transliteration(use_bmask):
-    from mgroms_tpu.assembly import assemble_bands
+    from mgroms_jax.assembly import assemble_bands
     nz, ny, nx = 5, 6, 7
     dx, dy, zr, zw, rmask = _grids(nz, ny, nx)
     op = assemble_bands(jnp.asarray(dx), jnp.asarray(dy),

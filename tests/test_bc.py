@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from mgroms_tpu.bc import extend_h1, extend_h2
+from mgroms_jax.bc import extend_h1, extend_h2
 
 
 def test_extend_h1_mirror():

@@ -10,10 +10,10 @@ dynamics, and still produce divergence-free water velocities.
 import jax.numpy as jnp
 import numpy as np
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
-from mgroms_tpu.ops.stencil import apply_op
-from mgroms_tpu.bc import extend_h1, extend_rmask
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax.ops.stencil import apply_op
+from mgroms_jax.bc import extend_h1, extend_rmask
 
 
 def _masked_model(nx=16, ny=16, nz=16):

@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.cases.seamount import setup_seamount
-from mgroms_tpu.parallel import make_mesh
-from mgroms_tpu.parallel.exchange import halo_extend
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.cases.seamount import setup_seamount
+from mgroms_jax.parallel import make_mesh
+from mgroms_jax.parallel.exchange import halo_extend
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
                             reason="needs 8 virtual devices")

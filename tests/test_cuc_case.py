@@ -28,7 +28,7 @@ def _write_grid(path, ny, nx, seed=3):
 
 
 def test_load_cuc_reads_subwindow_with_metric_floor(tmp_path):
-    from mgroms_tpu.cases.cuc import CUC_DEFAULTS, load_cuc
+    from mgroms_jax.cases.cuc import CUC_DEFAULTS, load_cuc
     path = str(tmp_path / "cuc_nhgrd.nc")
     h, pm, pn = _write_grid(path, ny=8, nx=10)
     nx, ny, i0, j0 = 6, 4, 2, 1
@@ -49,8 +49,8 @@ def test_load_cuc_reads_subwindow_with_metric_floor(tmp_path):
 
 def test_load_cuc_feeds_set_matrices(tmp_path):
     """The loaded window drives assembly end-to-end on a tiny grid."""
-    from mgroms_tpu import NHModel, SolverConfig
-    from mgroms_tpu.cases.cuc import load_cuc
+    from mgroms_jax import NHModel, SolverConfig
+    from mgroms_jax.cases.cuc import load_cuc
     path = str(tmp_path / "cuc_nhgrd.nc")
     _write_grid(path, ny=18, nx=18)
     nx = ny = 16

@@ -3,8 +3,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
 
 
 def _model(nx=16, ny=16, nz=16, **kw):
@@ -18,7 +18,7 @@ def _model(nx=16, ny=16, nz=16, **kw):
 def test_galerkin_ratio():
     """<p, A_c p> vs <P p, A_f P p> ratio ~ 4 (testgalerkin,
     mg_solvers.f90:203-288, expectation stated at :281-286)."""
-    from mgroms_tpu.solver import testgalerkin
+    from mgroms_jax.solver import testgalerkin
     m = _model(32, 32, 32)
     _, _, ratio = testgalerkin(m.backend, 1, m.cfg)
     # smooth field: both norms approximate the same energy integral
@@ -31,7 +31,7 @@ def test_galerkin_ratio():
 
 def test_vcycle2_reduces_residual():
     """Partial-depth V-cycle (Vcycle2, mg_solvers.f90:155-177) smooths."""
-    from mgroms_tpu.solver import vcycle2
+    from mgroms_jax.solver import vcycle2
     m = _model()
     be = m.backend
     u, v, w = initial_velocities(16, 16, 16)
@@ -48,7 +48,7 @@ def test_vcycle2_reduces_residual():
 def test_analytic_rhs_solve():
     """Solver-only path with the dipole RHS (rhs_seamount,
     mg_define_rhs.f90:12-63)."""
-    from mgroms_tpu.cases.analytic_rhs import (random_patches, rhs_random,
+    from mgroms_jax.cases.analytic_rhs import (random_patches, rhs_random,
                                                rhs_seamount)
     m = _model()
     b = rhs_seamount(16, 16, 16)
@@ -61,7 +61,7 @@ def test_analytic_rhs_solve():
 def test_cuc_synthetic_case():
     """Small-scale CUC-style run: strongly stretched s-coordinates
     (theta=6, hc=250) over a continental slope."""
-    from mgroms_tpu.cases.cuc import setup_cuc_synthetic
+    from mgroms_jax.cases.cuc import setup_cuc_synthetic
     c = setup_cuc_synthetic(32, 32, 16)
     m = NHModel(32, 32, 16)
     m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
@@ -76,7 +76,7 @@ def test_cuc_file_roundtrip(tmp_path):
     """load_cuc reads a netCDF grid file with the reference transforms
     (dx = 1/pm floored at 1 m, mg_setup_tests.f90:68-101)."""
     from scipy.io import netcdf_file
-    from mgroms_tpu.cases.cuc import load_cuc
+    from mgroms_jax.cases.cuc import load_cuc
     ny = nx = 8
     path = str(tmp_path / "cuc_nhgrd.nc")
     with netcdf_file(path, "w") as f:
@@ -99,7 +99,7 @@ def test_netcdf_output_stage_dumps(tmp_path):
     """cfg.netcdf_output=True produces the reference's stage dumps
     (nhydro.f90:85-95,130-132; mg_define_matrix.f90:187-194,668-673;
     mg_solvers.f90:74-77)."""
-    from mgroms_tpu.io.diagnostics import read_field
+    from mgroms_jax.io.diagnostics import read_field
     m = _model(8, 8, 8, netcdf_output=True, output_dir=str(tmp_path))
     # assembly-stage dumps: metrics + one cA per level
     for stem in ("dx", "dy", "zr", "zw"):
@@ -126,12 +126,20 @@ def test_netcdf_output_stage_dumps(tmp_path):
     assert float(div) < 5e-2 * b0
 
 
-def test_driver_smoke(tmp_path, capsys):
+def _isolate_driver(monkeypatch, tmp_path):
+    """Run a driver in ``tmp_path`` (restored afterwards) with its compile
+    cache left to JAX (a set JAX_COMPILATION_CACHE_DIR makes the driver's
+    cache helper set no directory of its own)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+
+
+def test_driver_smoke(tmp_path, capsys, monkeypatch):
     """The seamount driver runs end-to-end (reference testseamount
     program)."""
-    from mgroms_tpu.drivers.seamount import main
+    from mgroms_jax.drivers.seamount import main
     hist = str(tmp_path / "hist.txt")
-    os.chdir(tmp_path)
+    _isolate_driver(monkeypatch, tmp_path)
     main(["--nx", "8", "--ny", "8", "--nz", "8", "--cpu",
           "--tol", "1e-8", "--maxiter", "20", "--history", hist])
     out = capsys.readouterr().out
@@ -146,7 +154,7 @@ def test_profile_fcycle_populates_per_level_table():
     sections after one instrumented F-cycle — the reference's per-level
     accounting (tic/toc inside Fcycle/Vcycle/relax, printed by
     print_tictoc, mg_tictoc.f90:114-153)."""
-    from mgroms_tpu.utils.tictoc import TicToc, profile_fcycle
+    from mgroms_jax.utils.tictoc import TicToc, profile_fcycle
 
     m = _model(16, 16, 16)
     u, v, w = initial_velocities(16, 16, 16)
@@ -169,11 +177,11 @@ def test_profile_fcycle_populates_per_level_table():
     assert len(rep.strip().splitlines()) == 1 + len(levs)
 
 
-def test_driver_profile_flag(tmp_path, capsys):
+def test_driver_profile_flag(tmp_path, capsys, monkeypatch):
     """--profile prints the reference-style multi-level table after the
     solve (drivers/common.py)."""
-    from mgroms_tpu.drivers.seamount import main
-    os.chdir(tmp_path)
+    from mgroms_jax.drivers.seamount import main
+    _isolate_driver(monkeypatch, tmp_path)
     main(["--nx", "16", "--ny", "16", "--nz", "16", "--cpu",
           "--tol", "1e-4", "--maxiter", "5", "--profile"])
     out = capsys.readouterr().out

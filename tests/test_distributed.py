@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
-from mgroms_tpu.levels import build_level_plan
-from mgroms_tpu.parallel import MeshPlan, make_mesh
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax.levels import build_level_plan
+from mgroms_jax.parallel import MeshPlan, make_mesh
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
                             reason="needs 8 virtual devices")
@@ -81,7 +81,7 @@ def test_staged_agglomeration_solve_matches_single(comm):
     """A plan with an intermediate (single-axis) stage still reproduces the
     single-device iterates.  Grid 64x64x16 on a 2x4 mesh stages:
     both-axes -> both-axes -> py-only -> replicated."""
-    from mgroms_tpu.parallel import MeshPlan, make_mesh
+    from mgroms_jax.parallel import MeshPlan, make_mesh
     mesh = make_mesh(2, 4)
     levels = build_level_plan(64, 64, 16)
     plan = MeshPlan.create(mesh, levels, nsmall=8)
@@ -98,22 +98,22 @@ def test_staged_agglomeration_solve_matches_single(comm):
 
 @needs8
 def test_shardmap_tiled_kernels_match_single():
-    """The tiled Pallas kernels (fused color update + fused residual+
-    restrict) running INSIDE shard_map local blocks (interpret mode on the
-    CPU mesh, the exact TPU kernel code path) reproduce the single-device
-    solve.  32x32x16 on a 2x2 mesh: level 0 tiles (16x16) take the tiled
-    path, level 1 the per-shard compact-pack path, coarser replicated."""
+    """The Pallas color-update kernel (plain and residual-emitting)
+    running INSIDE shard_map local blocks (interpret mode on the CPU mesh,
+    the kernel code path the GPU compiles) reproduces the single-device
+    solve.  32x32x16 on a 2x2 mesh: levels 0 and 1 are sharded and run the
+    kernel on per-shard packs, coarser levels are replicated."""
     m = NHModel(32, 32, 16, cfg=SolverConfig(pallas_interpret=True))
     c = setup_seamount(32, 32, 16)
     m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
                    theta_b=c.theta_b, theta_s=c.theta_s)
     m.distribute(2, 2, comm="shard_map")
     be = m.backend
-    # the gates this test exists to pin: level 0 must actually run the
-    # tiled kernels on per-shard packs
-    assert be._use_compact_shard(0) and be._use_tiled_shard(0)
+    # the gates this test exists to pin: the sharded levels must actually
+    # run the kernel on per-shard packs
+    assert be._use_compact_shard(0) and be._use_kernel_shard(0)
     assert be.packs[0] is not None
-    assert be.plan.shards[1].sharded and not be._use_tiled_shard(1)
+    assert be.plan.shards[1].sharded and be._use_kernel_shard(1)
     assert be.packs[1] is not None
     u, v, w = initial_velocities(32, 32, 16)
     b = m.rhs(u, v, w)
@@ -191,7 +191,7 @@ def test_distributed_device_loop_matches_host_loop():
     pytree must reproduce the distributed host loop's history and
     pressure (weak spot flagged in round 4 — the parity was previously
     pinned single-device only)."""
-    from mgroms_tpu.solver import solve_p
+    from mgroms_jax.solver import solve_p
     nx = ny = nz = 16
     m = NHModel(nx, ny, nz, cfg=SolverConfig())
     c = setup_seamount(nx, ny, nz)

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mgroms_tpu.ops.relax_compact import (
+from mgroms_jax.ops.relax_compact import (
     _TKEYS, build_compact_pack, merge_quads, relax_compact_quads,
     relax_residual_compact_quads, relax_residual_restrict_compact_quads,
     residual_quads, restrict_quads_to_full, split_quads)
@@ -81,7 +81,7 @@ def test_fused_residual_restrict_bitwise_xla(real_matrix):
 def test_fused_residual_tiled_interpret_matches_xla(real_matrix):
     """The Pallas emit kernel (interpret mode on CPU) against the XLA
     fused path — covers _kernel_emit's in-kernel residual expression."""
-    from mgroms_tpu.ops.pallas.relax_tiled import (
+    from mgroms_jax.ops.pallas.relax_tiled import (
         relax_residual_restrict_tiled_quads, relax_residual_tiled_quads)
     nz, ny, nx = 4, 16, 16
     cA, p, b = _problem(nz, ny, nx, seed=7)
@@ -110,8 +110,8 @@ def test_solver_history_unchanged_by_fused_residual():
     """End-to-end: the f64 seamount solve history with cfg.fused_residual
     tracks the plain path to roundoff (identical in exact arithmetic;
     ulp-level XLA recompilation noise only)."""
-    from mgroms_tpu import NHModel, SolverConfig
-    from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
+    from mgroms_jax import NHModel, SolverConfig
+    from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
 
     def run(**kw):
         m = NHModel(16, 16, 16, cfg=SolverConfig(**kw))

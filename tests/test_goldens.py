@@ -11,8 +11,8 @@ import os
 
 import numpy as np
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -30,7 +30,7 @@ def test_seamount32_history_matches_golden():
     p, info = m.pressure_solve(b, tol=1e-12, maxiter=30)
     assert info.niter == gold["niter"]
     # atol floor: normalized residuals below ~1e-15 of ||b|| are summation-
-    # order noise (compact relax / MXU-scatter transfers reorder sums)
+    # order noise (compact relax reorders sums)
     np.testing.assert_allclose(np.array(info.history),
                                np.array(gold["history"]),
                                rtol=1e-6, atol=1e-15)

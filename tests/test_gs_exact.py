@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mgroms_tpu.bc import extend_h1
-from mgroms_tpu.ops.relax import relax_gs_exact
+from mgroms_jax.bc import extend_h1
+from mgroms_jax.ops.relax import relax_gs_exact
 
 
 def _np_gs_sweep(p, b, cA, real):
@@ -120,8 +120,8 @@ def test_gs_exact_solver_history_differs_and_converges():
     """End-to-end: cfg(relax_method='GS', gs_exact=True) converges with a
     healthy factor and produces a DIFFERENT history from the simultaneous
     column-Jacobi GS (the documented deviation this mode closes)."""
-    from mgroms_tpu import NHModel, SolverConfig
-    from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
+    from mgroms_jax import NHModel, SolverConfig
+    from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
 
     def run(**kw):
         m = NHModel(16, 16, 8, cfg=SolverConfig(relax_method="GS", **kw))

@@ -1,4 +1,4 @@
-from mgroms_tpu.levels import (build_level_plan, build_shard_plan,
+from mgroms_jax.levels import (build_level_plan, build_shard_plan,
                                find_grid_levels)
 
 

@@ -1,21 +1,22 @@
-"""Tiled Pallas kernels == their jnp references (interpret mode on CPU).
+"""The Pallas color-update kernel == its XLA reference (interpret mode on
+CPU).
 
-TPU-hardware numerics are additionally validated by the ad-hoc scripts in
-scripts/ (the kernels are TPU-gated in the backend; on CPU the solver
-never selects them, so these interpret-mode checks are the CI coverage).
+The kernel compiles for CUDA GPUs through Triton; the backend selects it
+there only (platform.kernel_allowed), so these interpret-mode checks are
+the CPU coverage of its arithmetic, and chip_smoke.py checks the compiled
+kernel on the card.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.bc import extend_h1
-from mgroms_tpu.cases.seamount import setup_seamount
-from mgroms_tpu.ops import stencil
-from mgroms_tpu.ops.relax_compact import build_compact_pack, relax_compact
-from mgroms_tpu.ops.pallas.relax_tiled import relax_compact_tiled
-from mgroms_tpu.ops.pallas.stencil_tiled import residual_tiled
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.bc import extend_h1
+from mgroms_jax.cases.seamount import setup_seamount
+from mgroms_jax.ops import stencil
+from mgroms_jax.ops.relax_compact import build_compact_pack, relax_compact
+from mgroms_jax.ops.pallas.relax_tiled import relax_compact_tiled
 
 
 def _operator(nx, ny, nz):
@@ -24,18 +25,6 @@ def _operator(nx, ny, nz):
     m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
                    theta_b=c.theta_b, theta_s=c.theta_s)
     return m.ops[0].cA
-
-
-def test_residual_tiled_matches_stencil():
-    nz, ny, nx = 8, 32, 64
-    cA = _operator(nx, ny, nz)
-    rng = np.random.default_rng(0)
-    p = jnp.asarray(rng.standard_normal((nz, ny, nx)))
-    b = jnp.asarray(rng.standard_normal((nz, ny, nx)))
-    want = stencil.residual(extend_h1(p), b, cA, True)
-    got = residual_tiled(extend_h1(p), b, cA, True, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-12, atol=1e-10)
 
 
 def test_relax_tiled_matches_compact():
@@ -67,10 +56,14 @@ def test_relax_tiled_builds_pack_from_bands():
 
 
 def test_residual_restrict_tiled_matches_pair():
-    """Fused residual+restrict == transfer.restrict(stencil.residual) —
-    identical summation tree, so equality is to rounding."""
-    from mgroms_tpu.ops.pallas.relax_tiled import residual_restrict_tiled
-    from mgroms_tpu.ops.transfer import restrict
+    """The down-leg pair on quad state (XLA quad residual + the quad-read
+    restriction, the path the kernel's levels take) ==
+    transfer.restrict(stencil.residual) — identical summation tree, so
+    equality is to rounding."""
+    from mgroms_jax.ops.relax_compact import (residual_quads,
+                                              restrict_quads_to_full,
+                                              split_quads)
+    from mgroms_jax.ops.transfer import restrict
     nz, ny, nx = 8, 32, 64
     cA = _operator(nx, ny, nz)
     rng = np.random.default_rng(5)
@@ -78,32 +71,19 @@ def test_residual_restrict_tiled_matches_pair():
     b = jnp.asarray(rng.standard_normal((nz, ny, nx)))
     want = restrict(stencil.residual(extend_h1(p), b, cA, True))
     pack = build_compact_pack(cA, True)
-    got = residual_restrict_tiled(p, b, pack, True, interpret=True)
+    got = restrict_quads_to_full(residual_quads(split_quads(p),
+                                                split_quads(b), pack, True))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-12, atol=1e-12)
-
-
-def test_thomas_unrolled_matches_scan():
-    from mgroms_tpu.ops.relax import thomas_unrolled, tridiag
-    rng = np.random.default_rng(2)
-    for nz in (1, 2, 8, 64):
-        d = jnp.asarray(rng.uniform(2.0, 3.0, (nz, 4, 8)))
-        ud = jnp.asarray(rng.uniform(-1.0, -0.5, (max(nz - 1, 0), 4, 8)))
-        b = jnp.asarray(rng.standard_normal((nz, 4, 8)))
-        np.testing.assert_allclose(np.asarray(thomas_unrolled(d, ud, b)),
-                                   np.asarray(tridiag(d, ud, b)),
-                                   rtol=1e-13, atol=1e-14)
 
 
 def test_thomas_factored_bitwise():
     """Precomputed-pivot substitution (scan form) is BITWISE-equal to the
     sequential Thomas for nz >= 2 (same op order — the smoother's
-    division-free hot path must not move the iterates).  The unrolled
-    Pallas form agrees to a ulp (XLA FMA-contraction freedom, same status
-    as thomas_unrolled vs tridiag); nz==1 differs by one rounding
-    (b*(1/d) vs b/d) and is unreachable on compact (nd==8) levels."""
-    from mgroms_tpu.ops.relax import (thomas_factor, thomas_factored_unrolled,
-                                      tridiag, tridiag_factored)
+    division-free hot path must not move the iterates); nz==1 differs by
+    one rounding (b*(1/d) vs b/d) and is unreachable on compact (nd==8)
+    levels."""
+    from mgroms_jax.ops.relax import thomas_factor, tridiag, tridiag_factored
     rng = np.random.default_rng(4)
     for nz in (2, 8, 64):
         d = jnp.asarray(rng.uniform(2.0, 3.0, (nz, 4, 8)))
@@ -113,6 +93,3 @@ def test_thomas_factored_bitwise():
         ref = np.asarray(tridiag(d, ud, b))
         np.testing.assert_array_equal(
             np.asarray(tridiag_factored(bet, gam, ud, b)), ref)
-        np.testing.assert_allclose(
-            np.asarray(thomas_factored_unrolled(bet, gam, ud, b)), ref,
-            rtol=1e-13, atol=1e-14)

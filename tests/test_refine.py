@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mgroms_tpu import SolverConfig
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
-from mgroms_tpu.refine import build_pair, refined_pressure_solve
+from mgroms_jax import SolverConfig
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax.refine import build_pair, refined_pressure_solve
 
 
 def test_refined_solve_reaches_f64_accuracy():

@@ -8,11 +8,11 @@ only on the active color's columns.
 import jax.numpy as jnp
 import numpy as np
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.bc import extend_h1
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
-from mgroms_tpu.ops.relax import relax
-from mgroms_tpu.ops.relax_compact import (
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.bc import extend_h1
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax.ops.relax import relax
+from mgroms_jax.ops.relax_compact import (
     merge_quads, relax_compact, split_quads)
 
 

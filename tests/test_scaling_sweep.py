@@ -16,15 +16,15 @@ committed run); these tests pin the structural invariant behind it.
 import jax
 import pytest
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.cases.seamount import setup_seamount
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.cases.seamount import setup_seamount
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
                             reason="needs 8 virtual devices")
 
 
 def _fcycle_text(npx, npy, comm):
-    from mgroms_tpu.solver import fcycle
+    from mgroms_jax.solver import fcycle
     m = NHModel(256, 32, 8, cfg=SolverConfig())
     c = setup_seamount(256, 32, 8)
     m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
@@ -51,7 +51,7 @@ def test_shardmap_permute_count_flat_in_device_count():
         m, txt = _fcycle_text(npx, 1, "shard_map")
         assert all(s.sharded for s in m.backend.plan.shards), \
             f"plan {npx}x1 de-shards a level; test grid needs adjusting"
-        # CPU lowers sync collective-permute ops; TPU lowers async
+        # CPU lowers sync collective-permute ops; GPUs lower async
         # start/done pairs — count op openings either way
         counts[npx] = txt.count("collective-permute(") \
             + txt.count("collective-permute-start(")
@@ -64,8 +64,10 @@ def test_scaling_sweep_runs_both_comm_layers(capsys):
     """The harness itself (examples/scaling.py) completes a small sweep on
     the virtual mesh under BOTH communication layers and reports an
     efficiency column (VERDICT: the shard_map layer must be swept too)."""
+    import os
     import sys
-    sys.path.insert(0, "examples")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
     import scaling
     for comm in ("gspmd", "shard_map"):
         sys.argv = ["scaling.py", "--grids", "64", "--meshes", "1x1,2x2",

@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.bc import extend_h1
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
-from mgroms_tpu.parallel import make_mesh
-from mgroms_tpu.parallel.exchange import block_extended, halo_extend
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.bc import extend_h1
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax.parallel import make_mesh
+from mgroms_jax.parallel.exchange import block_extended, halo_extend
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
                             reason="needs 8 virtual devices")
@@ -114,7 +114,7 @@ def test_shardmap_quad_persistent_sharded_relax():
     returns a QuadField (no split/merge inside), per-shard packs persist
     the operator, and the merged result equals the single-device compact
     smoother bit-for-bit."""
-    from mgroms_tpu.ops.relax_compact import QuadField, relax_compact
+    from mgroms_jax.ops.relax_compact import QuadField, relax_compact
 
     nz, ny, nx = 8, 16, 32
     m = NHModel(nx, ny, nz, cfg=SolverConfig(compact=True))
@@ -153,10 +153,10 @@ def test_shardmap_quad_persistent_sharded_relax():
 
 @needs8
 def test_shardmap_tiled_kernels_match_single():
-    """The tiled Pallas kernels (interpret mode) on quad-persistent SHARDED
-    levels: full distributed solve equals the single-device solve, with
-    level 0 running the tiled fused color update + fused residual+restrict
-    on per-device local blocks and level 1 the XLA compact quad path."""
+    """The Pallas color-update kernel (interpret mode) on quad-persistent
+    SHARDED levels: full distributed solve equals the single-device solve,
+    with the sharded levels running the kernel (and its residual-emitting
+    variant) on per-device local blocks."""
     nx, ny, nz = 64, 32, 8
     cfg = dict(compact=True, pallas_interpret=True)
     p1, i1 = _solve(nx, ny, nz, cfg_extra=cfg)
@@ -168,7 +168,7 @@ def test_shardmap_tiled_kernels_match_single():
     be = m.backend
     assert be.plan.shards[0].sharded and be.plan.shards[1].sharded
     assert be.state_quads(0) and be.state_quads(1)
-    assert be._use_tiled_shard(0)        # tiled kernel active on level 0
+    assert be._use_kernel_shard(0)       # kernel active on level 0
     u, v, w = initial_velocities(nx, ny, nz)
     b = m.rhs(u, v, w)
     p2, i2 = m.pressure_solve(b, tol=1e-10, maxiter=12)
@@ -186,8 +186,8 @@ def test_distribute_auto_selects_shard_map_when_compact():
     """comm='auto' (the default) picks the explicit backend whenever a
     sharded level smooths compact — the reference's flagship configuration
     (2x2-decomposed CUC) must keep the fast smoother paths."""
-    from mgroms_tpu.parallel.shardmap_backend import ShardMapBackend
-    from mgroms_tpu.parallel.backend import DistributedBackend
+    from mgroms_jax.parallel.shardmap_backend import ShardMapBackend
+    from mgroms_jax.parallel.backend import DistributedBackend
 
     m = NHModel(32, 16, 8, cfg=SolverConfig(compact=True))
     c = setup_seamount(32, 16, 8)
@@ -208,8 +208,8 @@ def test_extend_quads_shard_one_color_update():
     """One compact color update under shard_map (ppermute quad exchange)
     equals the single-device compact color update — pins the distributed
     quad extension including seam and corner values."""
-    from mgroms_tpu.ops.relax_compact import relax_compact
-    from mgroms_tpu.parallel.exchange import extend_quads_shard
+    from mgroms_jax.ops.relax_compact import relax_compact
+    from mgroms_jax.parallel.exchange import extend_quads_shard
 
     nz, ny, nx = 5, 16, 32
     m = NHModel(nx, ny, nz, cfg=SolverConfig(compact=True))

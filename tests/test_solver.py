@@ -2,11 +2,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mgroms_tpu import NHModel, SolverConfig
-from mgroms_tpu.bc import extend_h1
-from mgroms_tpu.cases.seamount import initial_velocities, setup_seamount
-from mgroms_tpu.ops.relax import tridiag
-from mgroms_tpu.ops.stencil import apply_op
+from mgroms_jax import NHModel, SolverConfig
+from mgroms_jax.bc import extend_h1
+from mgroms_jax.cases.seamount import initial_velocities, setup_seamount
+from mgroms_jax.ops.relax import tridiag
+from mgroms_jax.ops.stencil import apply_op
 
 
 def test_tridiag_matches_dense():
@@ -26,7 +26,7 @@ def test_tridiag_matches_dense():
 
 
 def test_tridiag_pcr_matches_thomas():
-    from mgroms_tpu.ops.relax import tridiag_pcr
+    from mgroms_jax.ops.relax import tridiag_pcr
     rng = np.random.default_rng(3)
     for nz in (1, 2, 5, 8, 64):
         d = rng.uniform(2.0, 3.0, (nz, 4, 3))
@@ -119,7 +119,7 @@ def test_device_loop_matches_host_loop():
     lax.while_loop program, one host sync per solve) must reproduce the
     host loop's iterate count, history and pressure exactly — same
     cycle_step body, so f64 histories are bitwise up to XLA scheduling."""
-    from mgroms_tpu.solver import solve_p
+    from mgroms_jax.solver import solve_p
     nx = ny = nz = 16
     m = _model(nx, ny, nz)
     u, v, w = initial_velocities(nx, ny, nz)
@@ -187,7 +187,7 @@ def test_device_loop_cycles_per_check_not_dividing_maxiter():
     sized for it (an out-of-bounds .at[].set is silently dropped by XLA,
     which used to leave the device loop reporting a stale final
     residual)."""
-    from mgroms_tpu.solver import solve_p
+    from mgroms_jax.solver import solve_p
     nx = ny = nz = 16
     m = _model(nx, ny, nz, cycles_per_check=2)
     u, v, w = initial_velocities(nx, ny, nz)
@@ -206,7 +206,7 @@ def test_device_loop_cycles_per_check_not_dividing_maxiter():
 def test_device_loop_zero_rhs_degenerates_like_host():
     """b == 0 makes every residual norm 0/0 = NaN; both loop forms must
     return the same degenerate (nan,) history instead of crashing."""
-    from mgroms_tpu.solver import solve_p
+    from mgroms_jax.solver import solve_p
     nx = ny = nz = 16
     m = _model(nx, ny, nz)
     b = jnp.zeros((nz, ny, nx), dtype=m.dtype)
